@@ -1,8 +1,8 @@
-"""BASELINE config 4 demo: 8 independent worlds with differing gravity /
-viscosity, stepped as ONE row-stacked resident grid (no vmap, one fused
-kernel pass — see ops.resident.make_grid_step n_worlds).
+"""Batched sweep demo: 8 independent worlds with differing gravity /
+viscosity, stepped as ONE row-stacked resident grid (no vmap, one kernel
+pass — see ops.resident.make_grid_step n_worlds).
 
-Run: python examples/batch_worlds.py   (CPU: Pallas interprets, keep tiny)
+Run: python examples/batch_worlds.py
 """
 
 import os

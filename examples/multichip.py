@@ -1,6 +1,6 @@
-"""Slab-sharded simulation over a device mesh (BASELINE config 5).
+"""Slab-sharded simulation over a device mesh.
 
-Runs on real multi-chip hardware or, as here, on virtual CPU devices:
+Runs on several GPUs or, as here, on virtual CPU devices:
 
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/multichip.py
@@ -35,7 +35,7 @@ for i in range(60):
     if i % 10 == 9:
         # keep the dispatch queue shallow: the virtual CPU mesh emulates
         # collectives with a 40s rendezvous timeout that deep async queues
-        # of ppermute programs can trip (real TPU meshes don't need this)
+        # of ppermute programs can trip
         jax.block_until_ready(state.position)
 print("per-device particle counts:",
       np.asarray(stats["n_valid"]).tolist())

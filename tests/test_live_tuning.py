@@ -1,7 +1,7 @@
 """Live parameter tuning with zero recompiles.
 
 The reference's egui panel mutates 11+ tick parameters every frame by
-rewriting a uniform buffer (src/simulation.rs:470-499). The TPU equivalent:
+rewriting a uniform buffer (src/simulation.rs:470-499). The equivalent here:
 every TickParams field is a traced scalar, so changing ANY of them reuses
 the same compiled executable — asserted here via the jit cache size.
 """

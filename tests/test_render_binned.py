@@ -1,4 +1,4 @@
-"""Binned (TPU-fast) renderers vs the windowed reference renderers."""
+"""Binned (gather-free) renderers vs the windowed reference renderers."""
 
 import numpy as np
 

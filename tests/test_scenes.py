@@ -1,7 +1,8 @@
 """Benchmark scene presets: geometry invariants the bench relies on.
 
 The tile-aligned scenes (models.scene_1m / scene_4m) promise (a) a
-grid_w that lands exactly on 128-lane vector tiles (zero pad columns),
+grid_w that lands exactly on the resident grid's 128-column padding
+(zero pad columns, whole column tiles for the GPU kernels),
 (b) a spawn lattice that fits the box (no boundary clamping at t=0), and
 (c) initial cell occupancy within cell_capacity (zero loss at t=0).
 SimSettings.spawn_columns must reproduce the reference lattice math
@@ -23,7 +24,7 @@ from tpufluid.ops import resident
 def test_tile_aligned_scene_geometry(scene_fn):
     s = scene_fn().settings
     gxp = resident._gxp(s)
-    assert s.grid_w % 128 == 0, (s.grid_w, "pad columns would waste lanes")
+    assert s.grid_w % 128 == 0, (s.grid_w, "pad columns would waste work")
     assert gxp == s.grid_w
 
     st = init_state(s)

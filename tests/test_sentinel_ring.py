@@ -6,7 +6,7 @@ the outermost (sentinel) ring. The stencil kernels' row-clamp and roll-wrap
 tricks assume that ring is empty, so wall particles got their own row
 duplicated into the stencil: densities/forces exactly 2x. Fixed by clamping
 cell coords to the interior [1, grid_dim-2] everywhere they are derived
-(ops.grid.cell_xy, ops.pallas.rebin._cells_of, ops.resident far-mover path).
+(ops.grid.cell_xy, ops.slot_physics.cells_of, ops.resident far-mover path).
 """
 
 import math
@@ -23,7 +23,6 @@ F = np.float32
 
 def _settings(n):
     # 4.0 / 0.5 == 8.0 exactly in f32: the failing configuration
-    # (grid kept small — interpret-mode Pallas cost scales with rows)
     return SimSettings(particle_count=n, particle_spacing=0.1,
                        smoothing_radius=0.5, size=(4.0, 4.0),
                        cell_capacity=8)
@@ -73,7 +72,7 @@ def test_wall_density_matches_naive_all_engines():
         velocity=jnp.zeros_like(base.velocity), density=base.density,
         cell=base.cell, tick=base.tick)
 
-    for mode in ("grid", "dense", "pallas"):
+    for mode in ("grid", "dense"):
         out = make_step(s, neighbor_mode=mode)(state, params)
         # output is in cell-sorted order; match rows by position
         got_pos = np.asarray(out.position)

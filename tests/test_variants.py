@@ -108,8 +108,7 @@ def test_multi_step_matches_python_loop():
 
 
 # ---------------------------------------------------------------------
-# Variants on the fast engines (dense / pallas / resident) — VERDICT r1
-# item 9: the reference implements surface tension in its one engine
+# Variants on the fast engines (dense / resident): the reference implements surface tension in its one engine
 # (compute.wgsl:303-498) and the fork strides the pressure loop
 # (shaders/compute.wgsl:170-174,195); every tpufluid engine carries both.
 # ---------------------------------------------------------------------
@@ -141,7 +140,7 @@ def test_surface_tension_engines_agree():
     base = _run(st_settings(), "grid", surface_tension=False)
     # the variant actually does something at h=1.5
     assert not np.allclose(np.asarray(ref.velocity), np.asarray(base.velocity))
-    for mode in ("naive", "dense", "pallas"):
+    for mode in ("naive", "dense"):
         out = _run(st_settings(), mode, surface_tension=True)
         np.testing.assert_allclose(
             np.asarray(out.position), np.asarray(ref.position), atol=2e-5,
@@ -187,7 +186,7 @@ def test_adaptive_subsampling_engines():
     ref = make_step(s, adaptive_subsampling=True)(state, params)
     assert float(jnp.max(ref.density)) > 200.0
     full = make_step(s, neighbor_mode="dense")(state, params)
-    for mode in ("naive", "dense", "pallas"):
+    for mode in ("naive", "dense"):
         out = make_step(s, neighbor_mode=mode,
                         adaptive_subsampling=True)(state, params)
         np.testing.assert_allclose(

@@ -49,7 +49,7 @@ class FluidApp:
                  strict_capacity: Optional[bool] = None,
                  capacity_policy: Optional[str] = None,
                  **step_kw):
-        """capacity_policy (bounded engines: resident/dense/pallas):
+        """capacity_policy (bounded engines: resident/dense):
 
         * ``"grow"`` (default) — never refuse and never lose mass: the
           cell capacity is auto-sized up front (params.
@@ -78,8 +78,7 @@ class FluidApp:
             raise ValueError(f"unknown capacity_policy {capacity_policy!r}")
         self._capacity_policy = capacity_policy
         self._strict_capacity = capacity_policy == "strict"
-        bounded = step_kw.get("neighbor_mode") in ("resident", "dense",
-                                                   "pallas")
+        bounded = step_kw.get("neighbor_mode") in ("resident", "dense")
         if bounded and capacity_policy == "grow":
             from .params import suggest_cell_capacity
             import dataclasses
@@ -88,15 +87,12 @@ class FluidApp:
                 # lattice (suggest without params = rest occupancy);
                 # the 256-tick loss audit + regrow-and-replay is the
                 # backstop, and it reproduces the always-big-capacity
-                # trajectory bitwise. Slot-tile headroom is NOT free —
-                # it is pure DMA: the reference default scene (100k,
-                # 53x53, g=-9.8) peaks at occupancy 6, and K=16 (the
-                # compression model's suggestion) measured 1.06 ms/step
-                # vs 0.849 at K=8 on v5e. Heavy-compression scenes pay
-                # 1-2 regrow recompiles at startup instead.
+                # trajectory bitwise. Slot headroom is not free: the
+                # rebin reads and writes every slot. Heavy-compression
+                # scenes pay 1-2 regrow recompiles at startup instead.
                 rec = suggest_cell_capacity(self.settings)
             else:
-                # dense/pallas have no runtime regrow: size for the
+                # dense has no runtime regrow: size for the
                 # modeled compression peak up front
                 rec = suggest_cell_capacity(self.settings, self.params)
             if settings.cell_capacity < rec:
@@ -331,9 +327,8 @@ class FluidApp:
         dispatch per burst instead of one per tick.
 
         This is the reference's per-frame tick burst
-        (src/main.rs:137-147) without the N encoder submissions; over a
-        remote-device tunnel, where each dispatch costs milliseconds, it
-        is the difference between dispatch-bound and compute-bound runs.
+        (src/main.rs:137-147) without the N encoder submissions: one
+        device dispatch per burst.
 
         Equivalent to ``tick()`` in a loop, with two burst-granularity
         contracts (the same ones the grow policy's regrow replay already
@@ -419,10 +414,8 @@ class FluidApp:
 
     def _maybe_shrink(self) -> None:
         """Reclaim capacity headroom left by a transient-compression
-        regrow: slot tiles are free for compute (occupancy-sliced
-        kernels) but the rebin kernel writes all K output slots —
-        the reference default scene regrows 8->16 on the spawn impact,
-        settles at occupancy 6, and runs 25% faster back at K=8."""
+        regrow: slot tiles cost no pair work (the physics loops stop at
+        the occupancy) but the rebin reads and writes all K slots."""
         import dataclasses
         k = self.settings.cell_capacity
         new_k = k - 8
@@ -509,9 +502,9 @@ class FluidApp:
                      camera: Optional[renderops.Camera] = None,
                      mode: str = "metaball"):
         """``metaball``: fluid surface. In resident mode it shades straight
-        off the slot grid (ops.render_grid Pallas path — no to_particles
-        sort, no re-binning); pass ``metaball_exact`` for the per-pixel
-        binned renderer. ``particles``: point sprites."""
+        off the slot grid (ops.render_grid -- no to_particles sort, no
+        re-binning); pass ``metaball_exact`` for the per-pixel binned
+        renderer. ``particles``: point sprites."""
         cam = camera or renderops.Camera(
             view_size=(self.settings.size[0], self.settings.size[0] * height / width)
         )

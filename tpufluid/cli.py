@@ -38,11 +38,12 @@ def _add_common(p):
     p.add_argument("--viscosity", type=float, default=25.0)
     p.add_argument("--surface-tension", action="store_true")
     p.add_argument("--neighbor-mode",
-                   choices=("resident", "grid", "dense", "pallas", "naive"),
+                   choices=("resident", "grid", "dense", "naive"),
                    default="dense",
-                   help="engine: resident = grid-resident (fastest; "
-                        "obstacles at cell granularity), dense = TPU "
-                        "rolls, grid = windowed")
+                   help="engine: resident = grid-resident (Triton kernels "
+                        "on a GPU; obstacles at cell granularity), dense = "
+                        "slot-grid rolls, grid = windowed, naive = "
+                        "all-pairs oracle")
     p.add_argument("--x-boundary", choices=("bounce", "wrap"),
                    default="bounce")
     p.add_argument("--adaptive-subsampling", action="store_true",
@@ -126,9 +127,11 @@ def main(argv=None):
 
     bench_p = sub.add_parser("bench", help="run the benchmark ladder")
     bench_p.add_argument("--config", type=int, default=None,
-                         help="BASELINE config number (1-5); default: all")
+                         help="scene config number (1-5); default: all")
 
     args = parser.parse_args(argv)
+    from .utils.cache import configure_compile_cache
+    configure_compile_cache()
 
     if args.cmd == "info":
         import jax
@@ -168,6 +171,7 @@ def main(argv=None):
         dt = time.perf_counter() - t0
         print(f"done: {args.steps} steps in {dt:.2f}s "
               f"({args.steps / dt:.1f} steps/s)")
+        print("metrics: " + json.dumps(app.metrics(), default=float))
         if args.checkpoint:
             app.save(args.checkpoint)
             print(f"checkpoint -> {args.checkpoint}")

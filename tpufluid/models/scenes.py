@@ -1,8 +1,8 @@
-"""Scene presets: the benchmark configurations from BASELINE.json.
+"""Scene presets: the benchmark configurations (BASELINE.json).
 
 The reference has exactly one hardcoded scene (100k particles in a 53x53
-box, src/main.rs:48-54); these presets cover it plus the driver-defined
-benchmark ladder (4k oracle scene -> 64k -> 256k -> 1M -> 4M sharded).
+box, src/main.rs:48-54); these presets cover it plus the benchmark
+ladder (4k oracle scene -> 64k -> 256k -> 1M -> 4M sharded).
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ def default_scene(**overrides) -> Scene:
 
 
 def dam_break_4k() -> Scene:
-    """BASELINE config 1: 4k particles, CPU-checkable oracle scene."""
+    """Config 1: 4k particles, CPU-checkable oracle scene."""
     return Scene(
         name="dam-break-4k",
         settings=SimSettings(
@@ -52,18 +52,13 @@ def dam_break_4k() -> Scene:
 
 
 def scene_64k() -> Scene:
-    """BASELINE config 2: 64k particles, sorted neighbor search.
+    """Config 2: 64k particles, sorted neighbor search.
 
-    Retiled round 5 to scene_1m's lane discipline: 512-lane grid (zero
-    pad columns), spawn 1008 columns at the reference rest packing
-    (spacing = h/2 -> settled occupancy ~3.8), box height sized to the
-    66-row spawn lattice (+ the eighth-cell offset so f32 rounding
-    never lands lattice rows ON a cell boundary). The old 53x53 box
-    compiled to a 267-wide grid padded to 384 lanes (117 dead lanes =
-    30% of every vector op) spread over 268 rows at occupancy ~0.93 —
-    round 4 measured 64k and 256k sharing an identical 268-row/67-
-    program dispatch grid, which WAS the mid-N floor (ROADMAP item 11).
-    This geometry has 36 rows / 9 programs.
+    Laid out like scene_1m: a 512-column grid (no pad columns), spawn
+    1008 columns at the reference rest packing (spacing = h/2 -> settled
+    occupancy ~3.8), box height sized to the 66-row spawn lattice (+ the
+    eighth-cell offset so f32 rounding never lands lattice rows ON a cell
+    boundary): 36 grid rows.
     """
     return Scene(
         name="sph-64k",
@@ -76,11 +71,10 @@ def scene_64k() -> Scene:
 
 
 def scene_256k() -> Scene:
-    """BASELINE config 3: 256k particles + JFA surface render.
+    """Config 3: 256k particles + JFA surface render.
 
-    Retiled round 5 like scene_64k (512-lane grid, occ-4 slab, 261
-    spawn rows): 134-row grid / 34 programs vs the old 268-row/67-
-    program 53x53 box with 30% pad lanes.
+    Laid out like scene_64k (512-column grid, occupancy-4 slab, 261 spawn
+    rows): a 134-row grid.
     """
     return Scene(
         name="sph-256k",
@@ -93,12 +87,11 @@ def scene_256k() -> Scene:
 
 
 def scene_1m() -> Scene:
-    """BASELINE config 4 base: 1M particles on one chip.
+    """Config 4 base: 1M particles on one device.
 
-    Tile-aligned world: grid_w = ceil(101.95/0.2)+2 = 512 — exactly four
-    128-lane vector tiles, so no vector op in the fused kernels pays for
-    pad lanes (the round-2 104x104 box compiled to a 640-lane grid with
-    118 dead columns: 18% of every op). The spawn lattice is narrowed to
+    Tile-aligned world: grid_w = ceil(101.95/0.2)+2 = 512, a multiple of
+    the resident grid's 128-column padding, so no column of the slot grid
+    is an empty pad column. The spawn lattice is narrowed to
     1008 columns (SimSettings.spawn_columns) so the fluid fits the
     tighter box with the cell-aligned 2-columns-per-cell packing of the
     reference's defaults (spacing = h/2, src/main.rs:48-54). The box is
@@ -120,12 +113,12 @@ def scene_1m() -> Scene:
 
 
 def scene_4m() -> Scene:
-    """BASELINE config 5: 4M particles sharded across v5e-8 by row bands.
+    """Config 5: 4M particles, sharded across devices by row bands.
 
-    Tile-aligned like scene_1m: grid 1024 x 1044 (eight 128-lane tiles
-    wide, zero pad columns), spawn 2016 columns so the fluid fills the
-    box at the reference's rest packing (2 lattice columns per cell).
-    131 grid rows per device on an 8-chip mesh.
+    Tile-aligned like scene_1m: grid 1024 x 1044 (no pad columns), spawn
+    2016 columns so the fluid fills the box at the reference's rest
+    packing (2 lattice columns per cell). 261 grid rows per device on a
+    4-device mesh.
     """
     return Scene(
         name="sph-4m",
@@ -139,7 +132,7 @@ def scene_4m() -> Scene:
 
 
 def batch_scenes(scene: Scene, gravities, viscosities, **step_kw):
-    """BASELINE config 4: vmap batch of B independent scenes with differing
+    """Config 4: vmap batch of B independent scenes with differing
     gravity/viscosity — the functional-design freebie the wgpu architecture
     cannot express.
 

@@ -1,13 +1,12 @@
-"""Dense cell-grid neighbor pass: the TPU-fast path.
+"""Dense cell-grid neighbor pass: the [N] engine without neighbor gathers.
 
-TPU gathers cost ~1 element/cycle, so the windowed [N, 144] neighbor gathers
-of ops.grid dominate the step (~20ms at 64k measured on v5e). This module
-replaces them with a layout XLA/Mosaic map well: particles are scattered
-ONCE into a dense per-cell slot grid in **row layout** ``[Gy, K, Gx]``
-(K = cell_capacity, minor dim = grid x → full 128-lane vectors), and every
-neighbor access becomes a jnp.roll of the whole grid — contiguous vector
-copies — followed by per-(offset, k') broadcasts of [Gy, 1, Gx] against the
-[Gy, K, Gx] self slots: pure VPU math, no gathers.
+The windowed [N, 144] neighbor gathers of ops.grid read every candidate
+through an index. This module instead scatters particles ONCE into a dense
+per-cell slot grid in **row layout** ``[Gy, K, Gx]`` (K = cell_capacity,
+minor dim = grid x), and every neighbor access becomes a jnp.roll of the
+whole grid -- contiguous copies -- followed by per-(offset, k') broadcasts
+of [Gy, 1, Gx] against the [Gy, K, Gx] self slots: elementwise math that
+XLA fuses, no gathers.
 
 Wrap-around of rolls is safe by construction: the one-cell sentinel ring
 (grid dims ceil(size/h)+2, src/simulation.rs:140) is never occupied because
@@ -61,11 +60,9 @@ def build_grid(pred_s, vel_s, sorted_cells, settings: SimSettings,
     """``dims``: optional (grid_h, grid_w) override — used by the sharded
     step, whose local grids span only a slab's columns plus halo.
 
-    The x dimension is padded to a multiple of 128 lanes so the flat slot
-    index space coincides with the physical TPU layout: without this, every
-    scatter/gather against the grid pays a relayout (profiled at 84% of the
-    1M step). The pad columns are permanently empty; stencil rolls wrap
-    through them harmlessly.
+    The x dimension is padded to a multiple of 128 columns, the resident
+    engine's layout (ops.resident._gxp). The pad columns are permanently
+    empty; stencil rolls wrap through them harmlessly.
     """
     return build_grid_cols(
         pred_s[:, 0], pred_s[:, 1], vel_s[:, 0], vel_s[:, 1],
@@ -75,9 +72,7 @@ def build_grid(pred_s, vel_s, sorted_cells, settings: SimSettings,
 
 def build_grid_cols(pxs, pys, vxs, vys, sorted_cells,
                     settings: SimSettings, dims=None) -> DenseGrid:
-    """Column-form build. ONE wide row scatter: TPU gather/scatter cost is
-    proportional to the index count, not the row width (profiled), so the
-    five per-field scatters collapse into a single [N, 5] row scatter."""
+    """Column-form build: one scatter per field into the slot grid."""
     k = settings.cell_capacity
     gy, gx = dims if dims is not None else (settings.grid_h, settings.grid_w)
     gx_pad = -(-gx // 128) * 128
@@ -88,9 +83,6 @@ def build_grid_cols(pxs, pys, vxs, vys, sorted_cells,
     size = gy * k * gx_pad
     flat = jnp.where(keep, (cy * k + rank) * gx_pad + cx, size)
 
-    # NOTE: per-field element scatters — a single [N, 5] row scatter was
-    # profiled 2.4x SLOWER (row scatters hit a slow path, unlike row
-    # gathers which cost ~ index count).
     shape = (gy, k, gx_pad)
 
     def scat(vals):
@@ -292,18 +284,16 @@ def force_pass(grid: DenseGrid, dens_g, params: TickParams, h, sqr_radius,
 
 def dense_neighbor_forces(pred_s, vel_s, sorted_cells, settings: SimSettings,
                           params: TickParams, norms, frame,
-                          pallas: bool = False, dims=None, **variant_kw):
+                          dims=None, **variant_kw):
     """Full dense pipeline for sorted particle arrays.
 
     Returns (density[N], pressure_force[N,2], viscosity_force[N,2],
     n_dropped). Out-of-capacity particles get density floor and zero force.
-    ``pallas=True`` routes the stencil passes through the fused Pallas
-    kernels (tpufluid.ops.pallas) instead of the XLA roll formulation.
     ``dims``/``sorted_cells`` may describe a local (sharded-slab) grid.
     """
     d, fpx, fpy, fvx, fvy, nd = dense_forces_cols(
         pred_s[:, 0], pred_s[:, 1], vel_s[:, 0], vel_s[:, 1], sorted_cells,
-        settings, params, norms, frame, pallas=pallas, dims=dims,
+        settings, params, norms, frame, dims=dims,
         **variant_kw,
     )
     return (d, jnp.stack([fpx, fpy], -1), jnp.stack([fvx, fvy], -1), nd)
@@ -311,11 +301,10 @@ def dense_neighbor_forces(pred_s, vel_s, sorted_cells, settings: SimSettings,
 
 def dense_forces_cols(pxs, pys, vxs, vys, sorted_cells,
                       settings: SimSettings, params: TickParams, norms,
-                      frame, pallas: bool = False, dims=None,
+                      frame, dims=None,
                       surface_tension: bool = False,
                       adaptive_subsampling: bool = False):
-    """Column-form dense pipeline (all 1D particle arrays — the TPU layout
-    that keeps scatters/gathers relayout-free).
+    """Column-form dense pipeline (all 1D particle arrays).
 
     Returns (density, f_pressure_x, f_pressure_y, f_visc_x, f_visc_y,
     n_dropped), each [N]."""
@@ -326,30 +315,18 @@ def dense_forces_cols(pxs, pys, vxs, vys, sorted_cells,
     grid = build_grid_cols(pxs, pys, vxs, vys, sorted_cells, settings,
                            dims=dims)
 
-    if pallas:
-        from .pallas import sph as psph
-        dens_g = psph.density(grid, params.mass, settings.smoothing_radius)
-    else:
-        dens_g = density_pass(grid, params.mass, h)
+    dens_g = density_pass(grid, params.mass, h)
     dens_g = jnp.maximum(dens_g, EPSILON)
     dens_g = jnp.maximum(dens_g, 0.1)
 
-    if pallas:
-        from .pallas import sph as psph
-        fx, fy, gx_, gy_ = psph.forces(
-            grid, dens_g, params, settings.smoothing_radius,
-            settings.sqr_radius, norms.spiky_derivative, norms.viscosity,
-            frame, surface_tension=surface_tension,
-            adaptive_subsampling=adaptive_subsampling)
-    else:
-        fx, fy, gx_, gy_ = force_pass(
-            grid, dens_g, params, h, sqr_radius,
-            jnp.float32(norms.spiky_derivative),
-            jnp.float32(norms.viscosity), frame,
-            surface_tension=surface_tension,
-            adaptive_subsampling=adaptive_subsampling)
+    fx, fy, gx_, gy_ = force_pass(
+        grid, dens_g, params, h, sqr_radius,
+        jnp.float32(norms.spiky_derivative),
+        jnp.float32(norms.viscosity), frame,
+        surface_tension=surface_tension,
+        adaptive_subsampling=adaptive_subsampling)
 
-    # ONE wide row gather for the readback (cost ~ index count)
+    # ONE wide row gather for the readback
     stack = jnp.stack(
         [dens_g.reshape(-1), fx.reshape(-1), fy.reshape(-1),
          gx_.reshape(-1), gy_.reshape(-1)], axis=1)  # [size, 5]

@@ -7,7 +7,7 @@ on a worker thread (src/main.rs:403-515), and re-uploaded as a push-out
 vector field. The reference *shipped* a jump-flood WGSL kernel intended to
 keep this on-device but never dispatched it (shaders/jump_flood.wgsl,
 src/simulation.rs:423-427). This module is that finished design: everything
-runs inside jit, so the sim loop never leaves the TPU.
+runs inside jit, so the sim loop never leaves the device.
 
 Semantics of the output field (matching src/main.rs:495-511): for every
 pixel, a vector in *pixel units* pointing to the nearest "outside" pixel

@@ -1,6 +1,6 @@
 """Spatial-hash grid: cell keys, sort-based binning, neighbor windows.
 
-TPU-native replacement for the reference's bitonic-sort + start-indices
+Replaces the reference's bitonic-sort + start-indices
 pipeline (``sort.wgsl:27-51``, ``compute.wgsl:33-56``, host pass table
 ``src/simulation.rs:323-357``). Design choices (SURVEY.md section 7):
 

@@ -1,6 +1,6 @@
 """2D SPH smoothing kernels and equation of state.
 
-Pure elementwise functions (VPU-friendly, broadcast over any shape).
+Pure elementwise functions (broadcast over any shape).
 Math matches the reference WGSL library (``funcs.wgsl:71-154``); the 2D
 normalization constants match the host-side precompute
 (``src/simulation.rs:486-490``):

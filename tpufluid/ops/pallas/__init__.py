@@ -1,1 +1,1 @@
-from . import sph  # noqa: F401
+"""Hand-written GPU kernels (Pallas through Triton)."""

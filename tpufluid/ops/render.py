@@ -1,6 +1,6 @@
 """Headless render-to-array kernels.
 
-TPU-native replacement for the reference's windowed render pipelines
+Replaces the reference's windowed render pipelines
 (SURVEY.md sections 2.7 / 2.16): instead of winit surfaces and fragment
 shaders, these produce RGBA framebuffers as device arrays inside jit.
 

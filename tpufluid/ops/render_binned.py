@@ -1,7 +1,7 @@
-"""Pixel-aligned binned rendering: the TPU-fast path for the fluid surface.
+"""Pixel-aligned binned rendering of the fluid surface, without gathers.
 
 The windowed renderer (ops.render) gathers 5x5-cell candidate lists per
-pixel — fine on CPU, pathological on TPU (gathers). Here the screen is
+pixel. Here the screen is
 tiled into SxS-pixel bins sized so one bin exceeds the metaball influence
 radius (2.5h, the reference's 5x5-cell walk, fluid_shader.wgsl:39-40);
 particles are scattered once into [By, Bx, K] bins, and each pixel then

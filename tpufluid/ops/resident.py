@@ -1,24 +1,25 @@
 """Grid-resident engine: particles live in the cell grid between steps.
 
-The [N]-array engine re-sorts, re-scatters and re-gathers the whole
-particle set every step; at 1M particles that data movement is >80% of the
-step (xprof). Here the state IS the dense slot grid [Gy, K, Gxp]
-(K = cell_capacity, minor dim = grid x), and each step is three fused
-occupancy-aware Pallas kernels (ops.pallas.fused):
+The [N]-array engines re-sort, re-scatter and re-gather the whole particle
+set every step. Here the state IS the dense slot grid [Gy, K, Gxp]
+(K = cell_capacity, minor dim = grid x), and each step is:
 
-  1. rebin: slots move to their new cells (local moves only, no
-     sort/scatter/gather), emitting per-row occupancy/far/overflow scalars;
-  2. far movers (> 1 cell/step, rare) re-insert through an XLA fallback
-     under ``lax.cond`` (costs nothing when there are none);
+  1. rebin: slots move to their new cells (local moves only), emitting
+     per-row occupancy/far/overflow counts (ops.slot_physics.rebin);
+  2. far movers (> 1 cell/step, rare) re-insert through a sort-based
+     fallback under ``lax.cond`` (costs nothing when there are none);
   3. density -> (pressure, 1/rho);
   4. forces fused with the FULL integration (gravity, mouse impulse, NaN
-     reset, speed clamp, obstacle force field, boundary bounce/wrap) —
-     compute.wgsl:59-299 + 95-155 in two kernels, no elementwise passes.
+     reset, speed clamp, obstacle force field, boundary bounce/wrap) --
+     compute.wgsl:59-299 + 95-155 in two stages, no elementwise passes.
 
-Empty slots hold position = fused.SENTINEL (no valid mask — exclusion
-falls out of the range test); ``occ_row`` carries per-row packed occupancy
-so kernel work tracks real occupancy instead of capacity^2 (ROADMAP
-round-1 lever, measured 1.78x at occupancy 4 / K 8).
+Stages 3 and 4 run as Triton kernels on an NVIDIA GPU
+(ops.pallas.triton_resident) and as the plain jnp stages of
+ops.slot_physics on the CPU; ``physics_impl`` chooses from the backend.
+
+Empty slots hold position = SENTINEL (no valid mask -- exclusion falls
+out of the range test); ``occ_row`` carries per-row packed occupancy so
+the physics loops run over occupied candidate slots only.
 
 Semantics match the [N] engines: re-binning keys are the clamped predicted
 positions, neighbor sets are identical; candidate iteration order is
@@ -26,7 +27,7 @@ positions, neighbor sets are identical; candidate iteration order is
 so results agree to f32 reduction order (tests/test_resident.py).
 
 Capacity rules: arrivals beyond cell_capacity and far movers beyond
-``far_capacity`` are dropped and COUNTED in ``GridState.lost`` — never
+``far_capacity`` are dropped and COUNTED in ``GridState.lost`` -- never
 silent. Keep cell_capacity at ~2x rest occupancy (params.SimSettings).
 
 Obstacle force fields are supported at CELL granularity: one push-out
@@ -39,6 +40,7 @@ neighbor_mode='dense' when per-texel sampling matters.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import jax
@@ -48,9 +50,9 @@ from jax import lax
 from ..params import SimSettings, TickParams
 from ..state import ParticleState, init_state
 from . import grid as gridops
+from . import slot_physics
 from .dense import build_grid_cols
-from .pallas import fused
-from .pallas.fused import SENTINEL, SENTINEL_HALF
+from .slot_physics import SENTINEL, SENTINEL_HALF
 
 
 @jax.tree_util.register_dataclass
@@ -69,70 +71,49 @@ class GridState:
 
 
 def _gxp(settings: SimSettings) -> int:
+    """Grid width padded to a multiple of 128 columns (the pad columns stay
+    empty). Every Triton program of ops.pallas.triton_resident then covers
+    a whole tile of 64 or 128 columns inside the array, so target loads
+    and stores need no column mask."""
     return -(-settings.grid_w // 128) * 128
 
 
-# rows per Pallas program in the fused kernels: the flat ~2us per-program
-# overhead dominates at small N and is ~25% of the 1M step; grids are
-# padded with empty rows to a multiple of this
-ROWS_PER_PROGRAM = 4
-
-
 def pad_capacity(settings: SimSettings) -> SimSettings:
-    """Round cell_capacity > 8 up to a multiple of 8 (the dynamic
-    sub-block loops in ops.pallas.fused slice the slot axis in 8-slot
-    tiles). Extra capacity never loses mass; the user contract is a
-    minimum."""
+    """Round cell_capacity up to a power of two up to 8, and to a multiple
+    of 8 above: the Triton kernels tile the slot axis in min(K, 8) slots,
+    a power-of-two block that must divide K. Extra capacity never loses
+    mass; the user contract is a minimum."""
     k = settings.cell_capacity
-    if k <= 8 or k % 8 == 0:
+    k_pad = 1 << (k - 1).bit_length() if k <= 8 else -(-k // 8) * 8
+    if k_pad == k:
         return settings
-    return dataclasses.replace(settings, cell_capacity=-(-k // 8) * 8)
+    return dataclasses.replace(settings, cell_capacity=k_pad)
 
 
-def _split_physics() -> bool:
-    """Physics kernel layout: the two-kernel density + forces path
-    (default) vs the single fused physics kernel (bitwise identical
-    outputs either way; TPUFLUID_FUSED_PHYSICS=1 /
-    TPUFLUID_SPLIT_PHYSICS=1 force one or the other).
-
-    Round-4 A/B on v5e (scripts/ab_r4.py, settled states, matched
-    bursts) measured the fused kernel a LOSS at every scale — 64k
-    0.847 vs 0.805 ms, 256k 1.123 vs ~0.98, 1M standalone physics
-    2.041/1.931 (rblk 4/8) vs 1.845 — because it must recompute
-    density for its (rblk+2)-row halo, which outweighs the saved
-    pres/invr HBM round-trip and prologue. Kept for A/B and as the
-    substrate for future layouts where the halo redundancy shrinks
-    (ROADMAP item 11)."""
-    import os
-    if os.environ.get("TPUFLUID_SPLIT_PHYSICS", ""):
-        return True
-    if os.environ.get("TPUFLUID_FUSED_PHYSICS", ""):
-        return False
-    return True
+def physics_impl(platform: Optional[str] = None) -> str:
+    """The physics implementation for a JAX backend: ``"triton"`` (the
+    compiled GPU kernels) on ``"gpu"``, ``"plain"`` (ops.slot_physics) on
+    ``"cpu"``. Any other platform is an error; nothing falls back."""
+    platform = platform or jax.default_backend()
+    if platform == "gpu":
+        return "triton"
+    if platform == "cpu":
+        return "plain"
+    raise RuntimeError(
+        f"the resident engine has no physics for platform {platform!r} "
+        "(supported: gpu, cpu)")
 
 
-def rows_per_program(settings: SimSettings) -> int:
-    """Largest rows-per-program whose physics-kernel VMEM footprint fits
-    the ~16 MB budget (row padding stays at 4, a multiple of every
-    choice). Footprint model, validated against the compiler's scoped-
-    vmem accounting: double-buffered 4-field (rblk+4)-row inputs +
-    double-buffered 4-field rblk-row outputs + scratch (2 pred rows x
-    (rblk+4), 2 density rows x (rblk+2), ~10 single-row accumulators),
-    all [K, Gxp] f32 tiles."""
-    k = pad_capacity(settings).cell_capacity
-    gxp = _gxp(settings)
-    for rblk in (ROWS_PER_PROGRAM, 2, 1):
-        est = 4 * k * gxp * (8 * (rblk + 4) + 8 * rblk
-                             + 2 * (rblk + 4) + 2 * (rblk + 2) + 15)
-        if est <= 15 * 2**20:
-            return rblk
-    return 1
-
-
-def _rows(settings: SimSettings) -> int:
-    """Grid rows padded to a ROWS_PER_PROGRAM multiple (pad rows are
-    permanently empty — cell rows never exceed grid_h - 2)."""
-    return -(-settings.grid_h // ROWS_PER_PROGRAM) * ROWS_PER_PROGRAM
+def physics_stages(impl: str):
+    """(density, forces_integrate) of ``impl`` (see physics_impl)."""
+    if impl == "triton":
+        from .pallas import triton_resident
+        return (functools.partial(triton_resident.density, interpret=False),
+                functools.partial(triton_resident.forces_integrate,
+                                  interpret=False))
+    if impl == "plain":
+        return slot_physics.density, slot_physics.forces_integrate
+    raise ValueError(f"unknown physics implementation {impl!r}")
 
 
 def valid_mask(gs: GridState) -> jax.Array:
@@ -155,7 +136,7 @@ def from_particles(state: ParticleState, settings: SimSettings) -> GridState:
     g4 = src[binning.perm]
     grid = build_grid_cols(
         g4[:, 0], g4[:, 1], g4[:, 2], g4[:, 3], binning.sorted_cells,
-        settings, dims=(_rows(settings), settings.grid_w))
+        settings, dims=(settings.grid_h, settings.grid_w))
     px = jnp.where(grid.valid, grid.px, SENTINEL)
     py = jnp.where(grid.valid, grid.py, SENTINEL)
     return GridState(
@@ -198,11 +179,10 @@ def shrink_capacity(gs: GridState, new_k: int) -> GridState:
     into slots 0..count-1, so the trailing tiles hold only sentinels and
     slicing them off loses nothing (the caller — FluidApp's shrink-back
     hysteresis — checks max occupancy first). The inverse of
-    ``grow_capacity``: slot tiles are free for COMPUTE (occupancy-sliced
-    kernels) but not for DMA — the rebin kernel writes all ``K`` output
-    slots, measured 1.06 vs 0.849 ms/step at K=16 vs 8 on the reference
-    default scene (100k, 53x53) — so sustained headroom is worth
-    reclaiming after a transient-compression regrow."""
+    ``grow_capacity``: slot tiles cost no pair work (the physics loops
+    stop at the occupancy) but the rebin reads and writes all ``K``
+    slots, so sustained headroom is worth reclaiming after a
+    transient-compression regrow."""
     gy, k, gxp = gs.pos_x.shape
     if new_k % 8 != 0:
         raise ValueError(f"new_k {new_k} must be a multiple of 8")
@@ -283,8 +263,12 @@ def make_grid_step(settings: SimSettings, far_capacity: int | None = None,
                    has_force_field: bool = False,
                    surface_tension: bool = False,
                    adaptive_subsampling: bool = False,
-                   n_worlds: int = 1):
+                   n_worlds: int = 1, impl: Optional[str] = None):
     """Jitted resident step: ``step(gs, params[, forcefield]) -> GridState``.
+
+    ``impl``: the physics implementation (see physics_impl), by default
+    the backend's own; the benchmark and the GPU checks pass "plain" to
+    compare the Triton kernels with what XLA makes of the plain stages.
 
     Memoized on all (hashable) arguments: FluidApp's capacity
     regrow/shrink hysteresis rebuilds steps as it moves between
@@ -300,48 +284,33 @@ def make_grid_step(settings: SimSettings, far_capacity: int | None = None,
     """
     if x_boundary not in ("bounce", "wrap"):
         raise ValueError(f"unknown x_boundary {x_boundary!r}")
+    impl = impl or physics_impl()
     key = (settings, far_capacity, x_boundary, has_force_field,
-           surface_tension, adaptive_subsampling, n_worlds)
+           surface_tension, adaptive_subsampling, n_worlds, impl)
     hit = _STEP_CACHE.get(key)
     if hit is not None:
         return hit
+    density, forces_integrate = physics_stages(impl)
     settings = pad_capacity(settings)
     gxp = _gxp(settings)
     k = settings.cell_capacity
     gy = settings.grid_h
-    gy_p = _rows(settings)  # state rows per world (ROWS_PER_PROGRAM pad)
     grid_w = settings.grid_w
-    gy_total = gy_p * n_worlds
-    rblk = rows_per_program(settings)
+    gy_total = gy * n_worlds
     h_inv = 1.0 / settings.smoothing_radius
     if far_capacity is None:
         # impact phases can fling thousands of >1-cell movers in one step
         far_capacity = max(4096, (gy_total * k * gxp) // 128)
     # batched world stacks: each world's grid rows already end in the
     # empty sentinel ring, so worlds stack directly along the row axis
-    # with zero cross-talk; only the cell-row comparison frame (row_shift)
-    # and the per-world scalar lookup (wid) change.
+    # with zero cross-talk; only the cell-row frame of each row
+    # (row_offset) and the per-world scalar lookup (wid) change.
     if n_worlds > 1:
-        wid = jnp.repeat(jnp.arange(n_worlds, dtype=jnp.int32), gy_p)
-        row_shift = -(wid * gy_p)
+        wid = jnp.repeat(jnp.arange(n_worlds, dtype=jnp.int32), gy)
+        row_offset = -(wid * gy)
     else:
         wid = None
-        row_shift = None
-    # Capacity-sliced REBIN dispatch: slots beyond the running max
-    # occupancy are all sentinel, so the rebin source scan runs on a
-    # [*, kv, Gxp] slice with kv = the occupancy rounded up to a slot
-    # tile, and packs at most kv+8 output slots (one tile of headroom;
-    # occupancy growing faster triggers a full-capacity redo below —
-    # costs nothing when clean). The PHYSICS kernels need no slicing:
-    # sub-row slot folding (ops.pallas.fused._sub_blocks) bounds their
-    # work per row at 8-slot granularity internally, which also keeps
-    # the compiled-variant count flat in K.
-    kvs = ([k] if (k <= 8 or k % 8 != 0)
-           else list(range(8, k + 1, 8)))
-
-    def _kv_index(occ_row):
-        occ_max = jnp.max(occ_row)
-        return jnp.clip((occ_max + 7) // 8 - 1, 0, len(kvs) - 1)
+        row_offset = 0
 
     def step(gs: GridState, params: TickParams,
              forcefield: Optional[jax.Array] = None) -> GridState:
@@ -352,42 +321,10 @@ def make_grid_step(settings: SimSettings, far_capacity: int | None = None,
                 "batched resident mode shares one delta across worlds "
                 "(pass a scalar); gravity/viscosity/etc. may be [B]")
 
-        # 1. re-bin by next predicted cell (Pallas; local moves); the
-        # source-slot scan is capacity-sliced, the output shape is full
-        # K with packing capped at kv+8 (redo below covers faster growth)
-        if len(kvs) == 1:
-            px, py, vx, vy, occ_row, far_n, over_n = fused.rebin(
-                gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y, gs.occ_row, dt,
-                settings, row_shift=row_shift, rows_per_program=rblk)
-        else:
-            def rebin_branch(kv):
-                def f(ops):
-                    gpx, gpy, gvx, gvy, gocc = ops
-                    return fused.rebin(
-                        gpx[:, :kv], gpy[:, :kv], gvx[:, :kv],
-                        gvy[:, :kv], gocc, dt, settings,
-                        row_shift=row_shift, rows_per_program=rblk,
-                        out_capacity=k,
-                        active_capacity=min(kv + 8, k))
-                return f
-
-            outs = lax.switch(
-                _kv_index(gs.occ_row),
-                [rebin_branch(kv) for kv in kvs],
-                (gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y, gs.occ_row))
-
-            # occupancy jumped past the kv+8 headroom in one step (rare:
-            # violent compression): redo at full capacity so arrivals the
-            # optimistic pass would have shed are kept. over_n > 0 out of
-            # the redo is TRUE capacity loss (counted in GridState.lost).
-            def redo_full(_):
-                return fused.rebin(
-                    gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y, gs.occ_row,
-                    dt, settings, row_shift=row_shift,
-                    rows_per_program=rblk)
-
-            px, py, vx, vy, occ_row, far_n, over_n = lax.cond(
-                jnp.sum(outs[6]) > 0, redo_full, lambda _: outs, None)
+        # 1. re-bin by next predicted cell (local moves)
+        px, py, vx, vy, occ_row, far_n, over_n = slot_physics.rebin(
+            gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y, dt, settings,
+            row_offset=row_offset)
         n_far = jnp.sum(far_n)
         n_over = jnp.sum(over_n)
 
@@ -398,7 +335,7 @@ def make_grid_step(settings: SimSettings, far_capacity: int | None = None,
             half = jnp.asarray(settings.size, jnp.float32) * 0.5
             prx = jnp.clip(gs.pos_x + gs.vel_x * dt, -half[0], half[0])
             pry = jnp.clip(gs.pos_y + gs.vel_y * dt, -half[1], half[1])
-            # interior clamp mirrors ops.grid.cell_xy / fused rebin
+            # interior clamp mirrors ops.grid.cell_xy / the rebin
             ncx = jnp.clip(
                 jnp.floor((prx + half[0]) * h_inv).astype(jnp.int32) + 1,
                 1, grid_w - 2)
@@ -409,7 +346,7 @@ def make_grid_step(settings: SimSettings, far_capacity: int | None = None,
             scy = jax.lax.broadcasted_iota(jnp.int32, gs.pos_x.shape, 0)
             if n_worlds > 1:
                 # world-local cell row -> absolute stacked row
-                ncy = ncy + (scy // gy_p) * gy_p
+                ncy = ncy + (scy // gy) * gy
             far = (gs.pos_x < SENTINEL_HALF) & (
                 (jnp.abs(ncy - scy) > 1) | (jnp.abs(ncx - scx) > 1))
             far_flat = far.reshape(-1)
@@ -461,8 +398,7 @@ def make_grid_step(settings: SimSettings, far_capacity: int | None = None,
             (px, py, vx, vy, occ_row),
         )
 
-        # 3. physics: density -> (pressure, 1/rho) -> forces + integration,
-        # two fused occupancy-aware Pallas kernels (capacity-sliced)
+        # 3. physics: density -> (pressure, 1/rho) -> forces + integration
         ff_cells = None
         if has_force_field:
             if forcefield is None:
@@ -476,37 +412,23 @@ def make_grid_step(settings: SimSettings, far_capacity: int | None = None,
                 if ff.ndim == 3:
                     ff = jnp.broadcast_to(ff, (n_worlds,) + ff.shape)
                 parts = [forcefield_cells(ff[w], settings, gxp,
-                                          n_rows=gy_p)
+                                          n_rows=gy)
                          for w in range(n_worlds)]
                 ff_cells = (jnp.concatenate([p[0] for p in parts]),
                             jnp.concatenate([p[1] for p in parts]))
             else:
                 ff_cells = forcefield_cells(forcefield, settings, gxp,
-                                            n_rows=gy_p)
+                                            n_rows=gy)
 
-        # full-K calls: sub-row folding inside the kernels bounds the
-        # work by per-row occupancy at 8-slot granularity. Default is
-        # the two-kernel density + forces path (the fused physics
-        # kernel measured slower at every scale — _split_physics);
-        # TPUFLUID_FUSED_PHYSICS=1 switches to the single kernel.
-        if _split_physics():
-            pres, invr = fused.density(
-                px, py, vx, vy, occ_row, params.mass, dt,
-                params.pressure_constant, params.rest_density, settings,
-                wid=wid, rows_per_program=rblk)
-            npx, npy, nvx, nvy = fused.forces_integrate(
-                px, py, vx, vy, pres, invr, occ_row, params, settings,
-                frame, ff_cells=ff_cells, x_boundary=x_boundary,
-                surface_tension=surface_tension,
-                adaptive_subsampling=adaptive_subsampling, wid=wid,
-                rows_per_program=rblk)
-        else:
-            npx, npy, nvx, nvy = fused.physics(
-                px, py, vx, vy, occ_row, params, settings,
-                frame, ff_cells=ff_cells, x_boundary=x_boundary,
-                surface_tension=surface_tension,
-                adaptive_subsampling=adaptive_subsampling, wid=wid,
-                rows_per_program=rblk)
+        pres, invr = density(
+            px, py, vx, vy, occ_row, params.mass, dt,
+            params.pressure_constant, params.rest_density, settings,
+            wid=wid)
+        npx, npy, nvx, nvy = forces_integrate(
+            px, py, vx, vy, pres, invr, occ_row, params, settings,
+            frame, ff_cells=ff_cells, x_boundary=x_boundary,
+            surface_tension=surface_tension,
+            adaptive_subsampling=adaptive_subsampling, wid=wid)
 
         return GridState(
             pos_x=npx, pos_y=npy, vel_x=nvx, vel_y=nvy,
@@ -557,8 +479,8 @@ def make_grid_multi_step(settings: SimSettings, n_steps: int, **kw):
 
 
 # ------------------------------------------------------------- batching
-# BASELINE config 4: B independent worlds with differing per-tick params,
-# stepped by ONE set of fused kernels. Worlds stack along the grid-row
+# Batched sweeps: B independent worlds with differing per-tick params,
+# stepped by ONE set of kernels. Worlds stack along the grid-row
 # axis (each world's sentinel ring separates it from its neighbors), so
 # kernel cost scales with total rows — no vmap, no per-world dispatch.
 
@@ -593,16 +515,16 @@ def batched_world_stats(gs: GridState, settings: SimSettings,
                         n_worlds: int) -> dict:
     """Per-world occupancy/row metrics for a batched row stack.
 
-    The fused kernels' cost scales with occupied rows x occ3 (candidate
+    The physics kernels' cost scales with occupied rows x occ3 (candidate
     slots scanned), so per-world variance here IS the batched-vs-single
-    throughput gap (BASELINE config 4): the stacked kernels pay every
+    throughput gap: the stacked kernels pay every
     world's row count at that world's occupancy, and a world whose fluid
     spreads over more rows or compresses to higher occ3 costs more than
     the single-scene equivalent. Returns plain Python lists (one entry
     per world): particle count, occupied rows, per-row max occupancy
     (mean over occupied rows / max), and mean occ3 over occupied rows —
     the candidate-scan bound the kernels actually pay."""
-    gy = _rows(settings)
+    gy = settings.grid_h
     occ_cell = jnp.sum((gs.pos_x < SENTINEL_HALF).astype(jnp.int32),
                        axis=1)  # [Gy_total, Gxp]
     occ_cell = occ_cell.reshape(n_worlds, gy, -1)
@@ -629,7 +551,7 @@ def batched_world_stats(gs: GridState, settings: SimSettings,
 
 def world_state(gs: GridState, settings: SimSettings, w: int) -> GridState:
     """Slice world ``w`` out of a batched row stack."""
-    gy = _rows(settings)
+    gy = settings.grid_h
     sl = slice(w * gy, (w + 1) * gy)
     return GridState(
         pos_x=gs.pos_x[sl], pos_y=gs.pos_y[sl],

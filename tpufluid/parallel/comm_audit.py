@@ -5,12 +5,11 @@ every ``ppermute`` / ``all_gather`` equation, keeping conditionally
 executed collectives (inside ``lax.cond`` branches — the far-mover
 path) separate from the unconditional per-step ones.
 
-This pins the config-5 ICI model (bench.py --config5-model) to the
-CODE: the modeled per-direction volume must equal what the compiled
-step actually ships, so a refactor that adds traffic fails
-tests/test_shard.py::test_resident_comm_volume_matches_model instead
-of silently invalidating the derived throughput number. The design it
-audits is the row-band halo exchange of
+This pins the documented per-step volume (``resident_comm_formula``) to
+the CODE: the per-direction volume must equal what the traced step
+actually ships, so a refactor that adds traffic fails
+tests/test_shard.py::test_resident_comm_volume_matches_model. The
+design it audits is the row-band halo exchange of
 tpufluid/parallel/shard.py (make_sharded_resident_step).
 """
 

@@ -1,11 +1,11 @@
-"""Multi-chip scaling: spatial slab sharding with ICI halo exchange.
+"""Multi-device scaling: spatial slab sharding with halo exchange.
 
 The reference is strictly single-GPU; its scaling mechanism is the
 spatial-hash sort (SURVEY.md section 5, "Long-context analog"). This module
-is the TPU-native multi-chip story (BASELINE config 5): the world is split
-into vertical slabs of grid-cell columns, one per device on a 1D
-``jax.sharding.Mesh`` axis; each step exchanges a two-column halo of
-boundary particles with mesh neighbors over ICI (``lax.ppermute``), computes
+splits the world over a 1D ``jax.sharding.Mesh`` axis of devices (on GPUs
+the collectives go through NCCL over NVLink): the [N] engines use
+vertical slabs of grid-cell columns; each step exchanges a two-column halo
+of boundary particles with mesh neighbors (``lax.ppermute``), computes
 the identical SPH physics (tpufluid.ops.pairs) on the local+halo set, and
 migrates particles whose new position crossed a slab boundary.
 
@@ -197,10 +197,10 @@ def make_sharded_step(spec: ShardSpec, mesh=None, has_force_field: bool = False,
 
     Returns ``step(sharded_state, params[, forcefield]) -> (state, stats)``;
     stats: dict of i32[D] per-device counters (valid count, drops).
-    ``neighbor_mode``: "grid" (windowed gathers), "dense" or "pallas"
-    (slab-local dense cell grid — the TPU-fast paths, see ops.dense).
+    ``neighbor_mode``: "grid" (windowed gathers) or "dense" (slab-local
+    dense cell grid, see ops.dense).
     """
-    if neighbor_mode not in ("grid", "dense", "pallas"):
+    if neighbor_mode not in ("grid", "dense"):
         raise ValueError(f"unknown neighbor_mode {neighbor_mode!r}")
     settings = spec.settings
     # slab-local grid width: widest slab + 2 halo columns each side
@@ -274,7 +274,7 @@ def make_sharded_step(spec: ShardSpec, mesh=None, has_force_field: bool = False,
 
         # ---- local binning over the combined set
         t = pred_c.shape[0]
-        if neighbor_mode in ("dense", "pallas"):
+        if neighbor_mode == "dense":
             # Local-grid dense path: remap global cells into a slab-local
             # column frame [0, w_loc) so every device's grid has the same
             # static shape; sorting by local ids preserves the global
@@ -295,7 +295,6 @@ def make_sharded_step(spec: ShardSpec, mesh=None, has_force_field: bool = False,
             from ..ops import dense as denseops
             dens, f_p, f_v, _ = denseops.dense_neighbor_forces(
                 pred_s, vel_s, sorted_cells, settings, params, norms, frame,
-                pallas=(neighbor_mode == "pallas"),
                 dims=(settings.grid_h, w_loc),
             )
             new_pos, new_vel = _integrate(
@@ -455,11 +454,11 @@ def gather_state(sharded: ShardedState) -> ParticleState:
 
 # =====================================================================
 # Resident-grid sharding: the grid-resident engine (ops.resident) over
-# row-band slabs — BASELINE config 5 on the fast path.
+# row-band slabs.
 # =====================================================================
 #
-# The resident state is the dense slot grid [Gy, K, Gxp] and every fused
-# kernel is a row program, so the natural shard axis is the GRID ROW:
+# The resident state is the dense slot grid [Gy, K, Gxp] and every stage
+# works row by row, so the natural shard axis is the GRID ROW:
 # each device owns a contiguous band of rows (world-space horizontal
 # slabs). Per step:
 #
@@ -471,18 +470,18 @@ def gather_state(sharded: ShardedState) -> ParticleState:
 #      fixed-size packets — every device re-inserts the ones landing in
 #      its band (zero cost when there are none);
 #   4. one ppermute each way ships a TWO-row (pos, vel) halo; density and
-#      the fused forces+integration run on the band+halo and the middle
+#      the forces+integration run on the band+halo and the middle
 #      rows are kept. Two rows because edge-row forces need neighbor
 #      densities, which need the neighbor's second row — shipping state
 #      once keeps density local (same reasoning as the column sharding
 #      above).
 #
-# Everything rides lax.ppermute over ICI; per-step comm volume is
+# Everything rides lax.ppermute; per-step comm volume is
 # O(rows * K * Gx), independent of band height.
 
 from ..ops import resident as residentops
-from ..ops.pallas import fused as _fused
-from ..ops.pallas.fused import SENTINEL, SENTINEL_HALF
+from ..ops import slot_physics
+from ..ops.slot_physics import SENTINEL, SENTINEL_HALF
 
 
 @dataclasses.dataclass(frozen=True)
@@ -497,7 +496,7 @@ class ResidentShardSpec:
 def build_resident_spec(settings: SimSettings, n_devices: int,
                         far_capacity: Optional[int] = None) -> ResidentShardSpec:
     settings = residentops.pad_capacity(settings)
-    gy = residentops._rows(settings)  # state rows (ROWS_PER_PROGRAM pad)
+    gy = settings.grid_h
     rows = -(-gy // n_devices)
     if rows < 4:
         raise ValueError(
@@ -581,6 +580,8 @@ def make_sharded_resident_step(spec: ResidentShardSpec, mesh=None,
     h_inv = 1.0 / settings.smoothing_radius
     fcap = spec.far_capacity
     mesh = mesh or make_resident_mesh(spec)
+    density, forces_integrate = residentops.physics_stages(
+        residentops.physics_impl())
 
     right_perm = [(i, i + 1) for i in range(d_count - 1)]
     left_perm = [(i, i - 1) for i in range(1, d_count)]
@@ -625,11 +626,9 @@ def make_sharded_resident_step(spec: ResidentShardSpec, mesh=None,
             p = jnp.full((1,) + a.shape[1:], fill, a.dtype)
             return jnp.concatenate([p, a, p], axis=0)
 
-        px, py, vx, vy, occ2, far_n, over_n = _fused.rebin(
+        px, py, vx, vy, occ2, far_n, over_n = slot_physics.rebin(
             pad1(gs.pos_x, SENTINEL), pad1(gs.pos_y, SENTINEL),
             pad1(gs.vel_x, 0.0), pad1(gs.vel_y, 0.0),
-            jnp.concatenate([jnp.zeros((1,), jnp.int32), gs.occ_row,
-                             jnp.zeros((1,), jnp.int32)]),
             dt, settings, row_offset=row_off - 1)
         n_over = jnp.sum(over_n)
         n_far_loc = jnp.sum(far_n)
@@ -755,7 +754,7 @@ def make_sharded_resident_step(spec: ResidentShardSpec, mesh=None,
              for i, b in enumerate((bpx, bpy, bvx, bvy))]
         occ_l = jnp.concatenate([fb[4], occ_band, fa[4]])
 
-        pres, invr = _fused.density(
+        pres, invr = density(
             L[0], L[1], L[2], L[3], occ_l, params.mass, dt,
             params.pressure_constant, params.rest_density, settings)
         ff_cells = None
@@ -763,7 +762,7 @@ def make_sharded_resident_step(spec: ResidentShardSpec, mesh=None,
             ff_cells = residentops.forcefield_cells(
                 forcefield, settings, gxp, row_start=row_off - 2,
                 n_rows=rloc + 4)
-        npx, npy, nvx, nvy = _fused.forces_integrate(
+        npx, npy, nvx, nvy = forces_integrate(
             L[0], L[1], L[2], L[3], pres, invr, occ_l, params, settings,
             frame, ff_cells=ff_cells, x_boundary=x_boundary,
             surface_tension=surface_tension,

@@ -1,12 +1,12 @@
 """Simulation parameter containers.
 
-TPU-native rebuild of the reference's two-tier parameter model
+Rebuild of the reference's two-tier parameter model
 (``SimulationSettings`` at construction time, ``TickSettings`` per tick;
 see reference ``src/simulation.rs:95-122``). The 30-field GPU uniform block
 (``src/simulation.rs:53-90``) disappears entirely: static, shape-determining
 values live in :class:`SimSettings` (hashable, closed over by ``jit``),
 while per-tick tunables live in :class:`TickParams`, a JAX pytree of traced
-scalars so every field can change *without recompilation* — the TPU
+scalars so every field can change *without recompilation* — the
 equivalent of the reference's ``queue.write_buffer`` uniform update
 (``src/simulation.rs:499``).
 """
@@ -32,7 +32,7 @@ class SimSettings:
     """Construction-time settings (static under jit).
 
     Mirrors reference ``SimulationSettings`` (``src/simulation.rs:95-104``)
-    plus TPU-specific capacity knobs. Defaults follow ``src/main.rs:48-54``
+    plus capacity knobs of the bounded engines. Defaults follow ``src/main.rs:48-54``
     and ``src/renderer.rs:16``.
     """
 
@@ -43,10 +43,9 @@ class SimSettings:
     size: Tuple[float, float] = (53.0, 53.0)
     # Obstacle force-field texture resolution (src/renderer.rs:16).
     texture_size: Tuple[int, int] = (1024, 1024)
-    # TPU-specific: max particles per grid cell the neighbor machinery can
-    # see. The WGSL kernels walk unbounded per-cell runs
-    # (compute.wgsl:182-229); on TPU shapes are static, so per-cell work is
-    # bounded by this capacity. Overflow degrades deterministically
+    # Max particles per grid cell the neighbor machinery can see. The WGSL
+    # kernels walk unbounded per-cell runs (compute.wgsl:182-229); here
+    # shapes are static, so per-cell work is bounded by this capacity. Overflow degrades deterministically
     # (dropped neighbor contributions; dropped particles in resident mode,
     # counted in GridState.lost) and is flagged by
     # utils.profiling.health_check.
@@ -58,19 +57,17 @@ class SimSettings:
     # scenes, >=32 for gravity/dam-break scenes. Cost scales ~capacity^2
     # in the stencil kernels.
     # Default sized for the reference's one hardcoded scene (100k in a
-    # 53x53 box at g=-9.8, src/main.rs:48-54): measured peak occupancy 6
-    # over 1000 steps; one 8-sublane tile. Slot tiles are pure DMA cost
-    # (K=16 measured 1.06 ms/step vs 0.849 at K=8 on that scene, v5e) —
+    # 53x53 box at g=-9.8, src/main.rs:48-54): peak occupancy 6 over 1000
+    # steps. Spare slots cost the resident rebin memory traffic, so
     # heavier scenes are covered by FluidApp capacity_policy "grow"
     # (audit + regrow-and-replay) or "strict" (sized refusal).
     cell_capacity: int = 8
-    # TPU-specific: spawn-lattice column count override. The default
-    # (None) reproduces the reference's sqrt(n)-wide lattice
-    # (src/simulation.rs:147-163). Every vector op in the fused kernels
-    # processes the grid's x-axis in 128-lane tiles, so a world whose
-    # grid_w is a multiple of 128 wastes zero lanes on padding
-    # (tpufluid.ops.resident._gxp); a narrower spawn lattice lets the
-    # world shrink to such a boundary (see models.scene_1m).
+    # Spawn-lattice column count override. The default (None) reproduces
+    # the reference's sqrt(n)-wide lattice (src/simulation.rs:147-163).
+    # The resident grid pads its width to a multiple of 128 columns
+    # (tpufluid.ops.resident._gxp), so a world whose grid_w is such a
+    # multiple carries no empty pad columns; a narrower spawn lattice lets
+    # the world shrink to that boundary (see models.scene_1m).
     spawn_columns: Optional[int] = None
 
     def __post_init__(self):
@@ -111,7 +108,7 @@ def suggest_cell_capacity(settings: SimSettings, params=None,
     """Cell capacity that keeps the bounded-capacity engines loss-free.
 
     The reference's per-cell loops are unbounded (compute.wgsl:182-229), so
-    it never sheds mass; the TPU engines bound per-cell work by
+    it never sheds mass; the bounded engines cap per-cell work by
     ``cell_capacity`` and must be sized for the scene's true peak
     occupancy. The spawn lattice packs ``occ0 = (h / spacing)^2`` per
     cell; two compression estimates are combined (max), both from the
@@ -153,7 +150,7 @@ def suggest_cell_capacity(settings: SimSettings, params=None,
     cap = occ0 * factor * safety
     if not rounded:
         return cap
-    # round up to the 8-sublane tile height the Pallas kernels block on
+    # round up to the 8-slot tile the resident GPU kernels block on
     return max(8, -(-int(math.ceil(cap)) // 8) * 8)
 
 

@@ -1,10 +1,9 @@
 """Particle state: a structure-of-arrays pytree.
 
-TPU-native replacement for the reference's 32-byte AoS ``ParticleInstance``
-storage buffer (``src/simulation.rs:126-135`` / ``funcs.wgsl:1-8``). On TPU
-the natural layout is SoA device arrays in a pytree: each field is a lane-
-contiguous vector the VPU can stream, and the whole state round-trips through
-``jit`` / ``checkpoint`` for free. The complete simulation state is this
+Replaces the reference's 32-byte AoS ``ParticleInstance`` storage buffer
+(``src/simulation.rs:126-135`` / ``funcs.wgsl:1-8``) with SoA device arrays
+in a pytree: each field is a contiguous vector, and the whole state
+round-trips through ``jit`` / ``checkpoint`` for free. The complete simulation state is this
 pytree plus the tick counter (cf. ``src/simulation.rs:12-17``), which makes
 checkpoint/resume trivial (see tpufluid.utils.io).
 """
@@ -52,7 +51,7 @@ def init_state(settings: SimSettings) -> ParticleState:
     n = settings.particle_count
     spacing = np.float32(settings.particle_spacing)
     if settings.spawn_columns is not None:
-        # TPU lane-alignment override (SimSettings.spawn_columns): same
+        # column-count override (SimSettings.spawn_columns): same
         # centered-lattice math with an explicit column count.
         per_row = np.float32(settings.spawn_columns)
     else:

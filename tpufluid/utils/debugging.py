@@ -2,14 +2,14 @@
 
 The reference's only NaN story is the silent in-kernel velocity reset
 (compute.wgsl:113-116) — a blowup leaves no trace of WHERE it started.
-Two TPU-native diagnosis tools:
+Two diagnosis tools:
 
 * ``checked_step``: wraps an [N]-engine step in
   ``jax.experimental.checkify`` with float checks — the returned error
   names the first NaN/Inf-producing primitive with a traceback into the
   step source. (Pallas kernels are opaque to checkify, so this covers
-  the ``dense``/``pallas``/``grid``/``naive`` engines; the resident
-  engine gets the stage-level audit below.)
+  the ``dense``/``grid``/``naive`` engines; the resident engine gets the
+  stage-level audit below.)
 * ``diagnose_resident_step``: runs ONE resident step stage by stage
   (rebin -> far-mover reinsert -> density -> forces+integrate) and
   reports per-stage finiteness / occupancy / loss, localizing a blowup
@@ -54,17 +54,18 @@ def diagnose_resident_step(gs, params: TickParams, settings: SimSettings,
 
     Returns {stage: {"finite": bool, "occ_max": int, ...}} for stages
     ``input``, ``rebin``, ``density``, ``forces``. The first stage with
-    ``finite == False`` is where the blowup entered.
+    ``finite == False`` is where the blowup entered. The physics stages
+    are the backend's own (ops.resident.physics_impl).
     """
-    from ..ops import resident
-    from ..ops.pallas import fused
+    from ..ops import resident, slot_physics
 
     settings = resident.pad_capacity(settings)
-    rblk = resident.rows_per_program(settings)
+    density, forces_integrate = resident.physics_stages(
+        resident.physics_impl())
     report = {}
 
     def stat(name, px, py, vx, vy, occ_row, extra=None):
-        live = px < fused.SENTINEL_HALF
+        live = px < slot_physics.SENTINEL_HALF
         z = jnp.zeros_like(px)
         finite = bool(
             jnp.all(jnp.isfinite(jnp.where(live, px, z)))
@@ -84,17 +85,15 @@ def diagnose_resident_step(gs, params: TickParams, settings: SimSettings,
 
     stat("input", gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y, gs.occ_row)
 
-    px, py, vx, vy, occ_row, far_n, over_n = fused.rebin(
-        gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y, gs.occ_row,
-        params.delta, settings, rows_per_program=rblk)
+    px, py, vx, vy, occ_row, far_n, over_n = slot_physics.rebin(
+        gs.pos_x, gs.pos_y, gs.vel_x, gs.vel_y, params.delta, settings)
     stat("rebin", px, py, vx, vy, occ_row,
          extra=dict(far=int(jnp.sum(far_n)), over=int(jnp.sum(over_n))))
 
-    pres, invr = fused.density(
+    pres, invr = density(
         px, py, vx, vy, occ_row, params.mass, params.delta,
-        params.pressure_constant, params.rest_density, settings,
-        rows_per_program=rblk)
-    live = px < fused.SENTINEL_HALF
+        params.pressure_constant, params.rest_density, settings)
+    live = px < slot_physics.SENTINEL_HALF
     report["density"] = dict(
         finite=bool(jnp.all(jnp.isfinite(jnp.where(live, pres, 0.0)))
                     & jnp.all(jnp.isfinite(jnp.where(live, invr, 0.0)))),
@@ -106,9 +105,8 @@ def diagnose_resident_step(gs, params: TickParams, settings: SimSettings,
     if forcefield is not None:
         gxp = px.shape[-1]
         ff_cells = resident.forcefield_cells(forcefield, settings, gxp)
-    npx, npy, nvx, nvy = fused.forces_integrate(
+    npx, npy, nvx, nvy = forces_integrate(
         px, py, vx, vy, pres, invr, occ_row, params, settings,
-        gs.tick + jnp.uint32(1), ff_cells=ff_cells,
-        rows_per_program=rblk)
+        gs.tick + jnp.uint32(1), ff_cells=ff_cells)
     stat("forces", npx, npy, nvx, nvy, occ_row)
     return report

@@ -1,7 +1,7 @@
 """Profiling and observability.
 
 The reference's story is tracing_subscriber + println frame counters and a
-1/90s frame-drop detector (SURVEY.md section 5). The TPU equivalents:
+1/90s frame-drop detector (SURVEY.md section 5). The equivalents here:
 ``jax.profiler`` trace capture, a steps/sec meter with proper device sync,
 and a NaN/occupancy health check usable inside jit via ``jax.debug``.
 """
